@@ -8,17 +8,17 @@ source, RMSProp H0 (rmsprop_weight=0.9), ``max_incr`` function-value guard
 — the configuration the reference aims at non-convex models
 (``stochqn/_optimizers.py`` adaQN docstring).
 
-Engines (run one per process — the TPU is single-tenant):
+Engines (one per process — one JAX process per card):
 
-    python benchmarks/adaqn_mlp.py fused       # FusedTrainer on the TPU chip
+    python benchmarks/adaqn_mlp.py fused       # FusedTrainer on the GPU
     python benchmarks/adaqn_mlp.py protocol    # free-mode adaQN, jax-CPU core
     python benchmarks/adaqn_mlp.py reference   # unmodified reference C core
 
 ``protocol`` and ``reference`` use the *identical* jitted jax-CPU
 gradient/objective closures, so their difference isolates the optimizer
-core; ``fused`` is the TPU production path.  All engines share the initial
-parameters and per-epoch batch schedule.  Timing covers training only
-(eval paused); compile is warmed up before the clock starts.
+core; ``fused`` is the on-device production path.  All engines share the
+initial parameters and per-epoch batch schedule.  Timing covers training
+only (eval paused); compile is warmed up before the clock starts.
 
 Prints one JSON line: per-epoch (seconds, test accuracy) plus
 ``time_to_target_s`` at TARGET_ACC.
@@ -44,11 +44,8 @@ import jax
 
 if ENGINE != "fused":
     jax.config.update("jax_platforms", "cpu")
-    cache = "~/.cache/jax_comp_cache_cpu"
-else:
-    cache = "~/.cache/jax_comp_cache"
-jax.config.update("jax_compilation_cache_dir", os.path.expanduser(cache))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from stochqn_tpu.utils import compile_cache
+compile_cache.enable()
 
 import jax.numpy as jnp
 import numpy as np
@@ -133,7 +130,7 @@ def main():
         # after epoch 0 recompiled mid-benchmark).
         st = trainer.init(params0)   # compile warmup on a throwaway state
         st, _ = epoch_fn(st, batched(0), jnp.float32(STEP), aligned=False)
-        float(jnp.sum(st.x))  # D2H barrier (see bench.py)
+        jax.block_until_ready(st)
 
         state = trainer.init(params0)
         t = 0.0
@@ -142,7 +139,7 @@ def main():
             t0 = time.perf_counter()
             state, _ = epoch_fn(state, data, jnp.float32(STEP),
                                 aligned=False)
-            float(jnp.sum(state.x))  # D2H barrier (see bench.py)
+            jax.block_until_ready(state)
             t += time.perf_counter() - t0
             epochs_out.append((t, test_acc(trainer.params(state), Xte, yte)))
 

@@ -33,7 +33,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-# protocol-on-CPU experiment; never touch the (single-tenant) TPU chip.
+# protocol-on-CPU experiment; it never needs the GPU.
 # No persistent compile cache: the shared CPU cache holds AOT entries
 # compiled for other hosts' CPU features (see CLAUDE.md), which XLA will
 # load with a SIGILL/wrong-numerics warning; compiles here are cheap.
@@ -104,10 +104,9 @@ def synthetic_bibtex(n=7395, d=1836, n_labels=159, seed=0):
 
 def synthetic_bibtex_structured(n=7395, d=1836, n_labels=159, rank=16,
                                 seed=0):
-    """BibTeX-like statistics the flat topic fallback lacks (VERDICT r3
-    missing #1): real tag data has POWER-LAW feature and label marginals
-    and LOW-RANK label co-occurrence (tags co-fire through a few latent
-    themes).  Both properties matter to the optimizer comparison: Zipfian
+    """BibTeX-like statistics the flat topic fallback lacks: real tag data
+    has POWER-LAW feature and label marginals and LOW-RANK label
+    co-occurrence (tags co-fire through a few latent themes).  Both properties matter to the optimizer comparison: Zipfian
     feature frequencies make the gradient covariance ill-conditioned
     (rare-but-informative features), which is the regime where a
     quasi-Newton rescaling can beat SGD per data point.
@@ -164,8 +163,8 @@ def early_advantage(curve_opt, curve_sgd, window_frac=0.33):
 
 
 def _merge_write(path, updates):
-    """Merge keys into the output JSON instead of clobbering prior runs
-    (the SCALING.json lesson — VERDICT r3 weak #1)."""
+    """Merge keys into the output JSON instead of clobbering prior
+    runs."""
     out = {}
     if os.path.exists(path):
         with open(path) as f:
@@ -247,8 +246,8 @@ def sweep_olbfgs(args, X, Y, source):
 
 def sweep_sgd(args, X, Y, source):
     """Tune the SGD (and RMSProp) baselines the oLBFGS sweep is scored
-    against (VERDICT r4 weak #2: the notebook's SGD step 1e-1 DIVERGES on
-    the structured synthetic, so beating it was trivially satisfiable).
+    against (the notebook's SGD step 1e-1 DIVERGES on the structured
+    synthetic, so beating it would be trivially satisfiable).
     Sweeps SGD/RMSProp steps with the exact same split/seed/batches as
     :func:`sweep_olbfgs`, flags diverging runs, then re-scores every
     recorded oLBFGS curve against the best NON-diverging SGD and RMSProp.

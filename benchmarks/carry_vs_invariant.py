@@ -1,15 +1,12 @@
-"""Does XLA hoist + VMEM-pin the pair memory when it threads through a
+"""Does XLA hoist the pair memory out of the scan when it threads through a
 scan CARRY (the fused engine's layout), or only when it is loop-invariant?
 
-kernels_bench showed the collapsed direction at n<=1M runs at 220-260% of
-peak HBM bandwidth when ``concat(s, y)`` is hoisted out of the scan into a
-VMEM temporary (operands loop-invariant), vs 64-66% when streamed from HBM
-each step.  The production inner scan threads ``mem.s/mem.y`` through the
-carry unchanged within a round — this measures whether XLA's while-loop
-invariant code motion catches that, deciding whether FusedTrainer.round
-should rebind the pair arrays as closure invariants.
+The production inner scan threads ``mem.s/mem.y`` through the carry
+unchanged within a round — this measures the collapsed direction both
+ways, deciding whether FusedTrainer.round should rebind the pair arrays
+as closure invariants.  Not yet run on the H100.
 
-Run alone on the TPU:  python benchmarks/carry_vs_invariant.py
+Run alone (one process per card):  python benchmarks/carry_vs_invariant.py
 """
 import functools
 import os
@@ -86,9 +83,8 @@ def measure(n, iters, mode):
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_comp_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from stochqn_tpu.utils import compile_cache
+    compile_cache.enable()
     for n in (292_083, 1_000_000):
         for mode in ("invariant", "carry"):
             us = measure(n, 1000, mode)

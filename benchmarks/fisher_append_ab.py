@@ -1,16 +1,15 @@
 """A/B: adaQN's per-step Fisher append as a dynamic-update-slice ring
 write vs a SHIFT rewrite (`concat([g, f[:-1]])`).
 
-The append is adaQN's structural per-step cost over SQN (~23 us at
-fs=100, round-3 budget).  Fisher rows are consumed only through the
-symmetric product ``F^T (F s) / count`` so chronological order is
-irrelevant — a newest-first shift buffer computes identical math.  The
-oLBFGS shift-ring lesson says a rewrite can beat a DUS into a scan
-carry when the buffer is small (one fused pass, no carry copy, better
-overlap); for fs=100 the rewrite's full-buffer traffic (2 x fs x n
-bytes/step) should lose badly.  This harness measures both at a given
-``--fs`` with both variants traced in one process (monkey-patched
-``FisherMemory.append``) and interleaved reps.
+The append is adaQN's structural per-step cost over SQN.  Fisher rows
+are consumed only through the symmetric product ``F^T (F s) / count`` so
+chronological order is irrelevant — a newest-first shift buffer computes
+identical math.  A rewrite can beat a DUS into a scan carry when the
+buffer is small (one fused pass, no carry copy); for fs=100 the
+rewrite's full-buffer traffic (2 x fs x n bytes/step) should lose.  This
+harness measures both at a given ``--fs`` with both variants traced in
+one process (monkey-patched ``FisherMemory.append``) and interleaved
+reps.  Not yet run on the H100.
 
 Workload: production adaQN, flagship shape, reference defaults except
 ``fisher_size``.
@@ -25,9 +24,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_comp_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from stochqn_tpu.utils import compile_cache
+compile_cache.enable()
 
 import jax.numpy as jnp
 import numpy as np

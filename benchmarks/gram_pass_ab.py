@@ -1,14 +1,9 @@
 """A/B: the commit's incremental-Gram pass as one ``[2m, n] @ [n, 2]``
-matmul vs two ``[2m, n] @ [n]`` matvecs.
+matmul vs two ``[2m, n] @ [n]`` matvecs (``ops/pairs._gram_cols``).
 
-Motivation: the final-HEAD flagship attribution prices the SQN
-boundary's Gram refresh at 47.2 us — reading the 23.4 MB pair buffer at
-~500 GB/s, while the two-loop's projection pass over the SAME buffer
-with a ``[n]`` RHS runs at 8.7 us (~2.7 TB/s, VMEM-resident).  The
-suspect is the round-4 hardware lesson: arrays whose two minor dims
-include a 2 get a T(2,128) tile (2/8 sublanes), and the matmul's
-``[n, 2]`` RHS / ``[2m, 2]`` output are exactly that shape.  Two
-matvecs with ``[n]`` operands avoid any dim-2-minor array.
+The two-matvec form won on the earlier accelerator, where a 2-column
+operand got a narrow memory tile; whether it matters on the H100 is not
+measured yet.
 
 Both variants are traced in one process by monkey-patching
 ``pairs._mem_mm`` with a wrapper that splits 2-column RHS matmuls
@@ -25,9 +20,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_comp_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from stochqn_tpu.utils import compile_cache
+compile_cache.enable()
 
 import jax.numpy as jnp
 import numpy as np

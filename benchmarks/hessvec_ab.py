@@ -6,12 +6,12 @@ matmuls: primal logits + tangent logits + primal backward + tangent
 backward); the analytic Gauss/true multinomial hessvec is 3 (logits, zv,
 and the single backward contraction) plus cheap softmax arithmetic.  The
 boundary runs once per ``upd_freq=20`` steps on the 1000-row big batch,
-so the ceiling for the win is the boundary-jvp line of the round-5
-attribution table (~28-35 us/boundary = 1.4-1.8 us/iter).
+so the win is bounded by the boundary's share of a step.  Not yet run on
+the H100.
 
-Method per CLAUDE.md: 20-epoch single-dispatch reps (2,400 steps each),
-reps of the two engines interleaved in time, scalar D2H read as the
-timing barrier.  Prints one JSON line.
+Method: 20-epoch single-dispatch reps (2,400 steps each), reps of the two
+engines interleaved in time, scalar device-to-host read as the timing
+barrier.  Prints one JSON line.
 """
 import json
 import os
@@ -22,9 +22,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_comp_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from stochqn_tpu.utils import compile_cache
+compile_cache.enable()
 
 import jax.numpy as jnp
 import numpy as np

@@ -2,12 +2,10 @@
 single ``[.., n] @ [n, 2]`` matmul vs two ``[n]``-RHS matvecs — for a
 chosen pair-storage configuration.
 
-Sequential sweeps cannot settle this for bf16 storage (the
-bf16+interleaved cell swings 8.9-10.4k iters/s across sessions); this
+Sequential sweeps cannot settle a difference of a few per cent; this
 harness traces both forms in one process by monkey-patching
 ``pairs._gram_cols`` and interleaves the timed reps, like
-``neumann_ab.py``.  The f32 result is corroborated independently by two
-sweeps (+59% interleaved, +9% block).
+``neumann_ab.py``.  Not yet run on the H100.
 
 Usage: ``python benchmarks/olbfgs_gram_ab.py [--f32]`` (default: the
 production bf16+interleaved configuration).
@@ -21,9 +19,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_comp_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from stochqn_tpu.utils import compile_cache
+compile_cache.enable()
 
 import jax.numpy as jnp
 import numpy as np

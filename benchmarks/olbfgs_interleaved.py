@@ -1,16 +1,14 @@
-"""oLBFGS pair-layout A/B: block [m, n]x2 vs interleaved [m, 2, n] (real TPU).
+"""oLBFGS pair-layout A/B: block [m, n]x2 vs the interleaved layout.
 
 The interleaved layout turns oLBFGS's every-iteration ring commit into ONE
 contiguous [2, n] write instead of two [n] row writes, and the Gram
 row/column refresh into two contiguous slab writes instead of four
-(``core.state.BFGSMemoryInterleaved``).  The op-budget attribution
-(``benchmarks/olbfgs_op_budget.py``, BENCH_NOTES "oLBFGS op budget") priced
-the avoidable write at ~25 us/step (~15%) at the flagship shape — this
-script measures whether the layout actually collects it.
+(``core.state.BFGSMemoryInterleaved``).  This script measures whether the
+layout collects the write it saves.  Not yet run on the H100.
 
 Methodology: long-chain differencing (>=320-step signal) with the two
-layouts' repetitions INTERLEAVED in time (rep k of both adjacent), per the
-measurement rules in BENCH_NOTES.  Run alone on the TPU (single-tenant).
+layouts' repetitions INTERLEAVED in time (rep k of both adjacent).  One
+process per card.
 """
 import os
 import sys
@@ -19,9 +17,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_comp_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from stochqn_tpu.utils import compile_cache
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
 

@@ -1,11 +1,8 @@
-"""Attribute oLBFGS's per-step budget op by op (real TPU).
+"""Attribute oLBFGS's per-step budget op by op.
 
-oLBFGS runs at ~5.5k iters/s vs SQN's ~18.5k on the flagship workload.
-Its step = two same-batch gradients + a FULL pair commit every iteration
-(``src/stochqn.c:978-1036``).  Ablated variants (semantics-breaking,
-benchmark-only) pin the cost to specific pieces before deciding whether
-a pair-memory layout change (e.g. interleaved [m, 2, n] so one ring
-write lands both rows) is worth its blast radius:
+oLBFGS's step = two same-batch gradients + a FULL pair commit every
+iteration (``src/stochqn.c:978-1036``).  Ablated variants
+(semantics-breaking, benchmark-only) pin the cost to specific pieces:
 
   full         — the production `olbfgs_step`
   one_grad     — second (same-batch) gradient removed
@@ -15,7 +12,7 @@ write lands both rows) is worth its blast radius:
   no_cache     — rows + Gram pass, but no small-math cache rebuild
   sqn_base     — `_sqn_base` reference point
 
-Long-chain differencing (see BENCH_NOTES methodology; >=320-step signal).
+Long-chain differencing (>=320-step signal).  Not yet run on the H100.
 """
 import functools
 import os
@@ -25,9 +22,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_comp_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from stochqn_tpu.utils import compile_cache
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
 
@@ -105,7 +101,7 @@ def variant_step(cfg, variant):
 
 
 def variant_step_interleaved(cfg, variant):
-    """The bf16+interleaved-era ladder (VERDICT r4 item 4): same ablation
+    """The bf16+interleaved ladder: same ablation
     ideas against the production flat-[2m, n] storage.  Variants:
     full / one_grad / no_commit / slab_only (the single [2, n] ring-slab
     write, no Gram, no cache) / no_cache (slab + Gram slabs)."""
@@ -209,17 +205,21 @@ def variant_step_interleaved(cfg, variant):
 
 
 def bf16_interleaved_floor():
-    """Modeled HBM-resident bytes/step floor for bf16 flat-[2m, n]
-    storage (the round-5 update of the round-3 f32-block floor):
-    two direction passes over the pairs + the commit's Gram pass (3 reads
-    of 2m*n*2 bytes), the [2, n] slab write, two batch reads, and ~8
-    f32 n-vector streams."""
+    """Modeled HBM-streamed bytes/step floor for bf16 flat-[2m, n]
+    storage: two direction passes over the pairs + the commit's Gram pass
+    (3 reads of 2m*n*2 bytes), the [2, n] slab write, two batch reads,
+    and ~8 f32 n-vector streams, over the device's bandwidth from
+    ``bench.PEAKS``."""
     pair = 2 * MEM * N * 2
     batch = BS * N_FEATURES * 4
     vecs = 8 * N * 4
     slab = 2 * N * 2
     total = 3 * pair + slab + 2 * batch + vecs
-    return total, total / 819e9 * 1e6
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from bench import peaks
+    _, peak_bw = peaks(jax.devices()[0].device_kind)
+    return total, total / peak_bw * 1e6
 
 
 def timed(step_fn, state, unroll=1):
@@ -272,7 +272,7 @@ def main():
     if args.bf16_interleaved:
         nbytes, floor_us = bf16_interleaved_floor()
         print(f"bf16+interleaved modeled HBM floor: {nbytes / 1e6:.1f} "
-              f"MB/step = {floor_us:.1f} us/step (VMEM-resident passes "
+              f"MB/step = {floor_us:.1f} us/step (L2-resident passes "
               "would be lower)", flush=True)
         cfg = OLBFGSConfig.create(mem_size=MEM, min_curvature=None,
                                   pairs_bf16=True, pairs_interleaved=True)

@@ -3,7 +3,7 @@
 Measures the flagship BibTeX-shaped workload (see all_optimizers.py) with
 ``FusedTrainer(paired_grads=...)`` toggled.  The paired layout fuses the two
 per-iteration gradient evaluations (``src/stochqn.c:991-1031``) into one
-vmapped call — per-step op count is the cost driver on this backend.
+vmapped call.  Not yet run on the H100.
 """
 import os
 import statistics
@@ -13,9 +13,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_comp_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from stochqn_tpu.utils import compile_cache
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
 

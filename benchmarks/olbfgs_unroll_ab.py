@@ -1,11 +1,9 @@
 """Interleaved A/B: oLBFGS production step, inner-scan unroll 1 vs 8.
 
-Post-shift-ring sessions of the op-budget ladder showed unroll=8 at
-82.9-86.9 vs production 89.3-92.3 us/step — a possible ~5-10% that
-contradicts the pre-shift (and SQN) unroll losses.  The ladder times
-variants SEQUENTIALLY, which hands them different host states (the
-round-2 "small-n native gap" lesson); this A/B interleaves rep k of both
-arms adjacently and reports per-pair ratios.
+The auto ``unroll=8`` for oLBFGS (``FusedTrainer.unroll``) was chosen on
+the earlier accelerator.  Timing the variants SEQUENTIALLY hands them
+different host states; this A/B interleaves rep k of both arms adjacently
+and reports per-pair ratios.  Not yet run on the H100.
 """
 import functools
 import os
@@ -16,9 +14,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_comp_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from stochqn_tpu.utils import compile_cache
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
 

@@ -1,9 +1,8 @@
 """Measure the EXPOSED collective cost directly (2-process cluster).
 
-Round-3's >=90% weak-scaling story rested on an *unoverlapped* ICI
-roofline whose escape hatch ("XLA overlaps the all-reduce with
-independent compute") was asserted, never measured.  This harness
-measures the exposure:
+Whether XLA overlaps the gradient all-reduce with independent compute
+decides how much of the collective's time is exposed.  This harness
+measures the exposure between CPU processes:
 
   A ("cluster"):  2 real processes, jax.distributed cluster, global
       (2-data x 1-param) mesh — every step's gradient mean psums across
@@ -18,21 +17,19 @@ measures the exposure:
   exposed_collective_us = t_step(A) - t_step(B)     per pair, median
   weak_scaling_eff      = ips(A) / ips(B)
 
-Pairs are interleaved in time (rep k of A and B adjacent — BENCH_NOTES
-measurement rule).  The recurrent compute-dominated model from
-scaling_multiprocess.py is swept over DEPTH: per-step compute grows
-linearly with depth while the collective payload (d*d*4 = 1 MB) is
+Pairs are interleaved in time (rep k of A and B adjacent).  The
+recurrent compute-dominated model from scaling_multiprocess.py is swept
+over DEPTH: per-step compute grows linearly with depth while the collective payload (d*d*4 = 1 MB) is
 constant, so if the exposed cost is a fixed per-step toll, efficiency
-must rise toward 1 with depth — the measured counterpart of the
-roofline's overlap claim, and the path to a MEASURED >=0.9 cell.
+must rise toward 1 with depth.
 
-Known host artifacts (BENCH_NOTES "Multi-PROCESS weak scaling"):
+Known host artifacts:
 TCP slow-start-after-idle (mitigated here via sysctl when permitted,
 recorded either way) and an XLA-CPU collective-after-deep-AD anomaly
 (the depth sweep quantifies whether it scales with depth).
 
 Run: python benchmarks/overlap_ablation.py            (~15 min)
-Writes SCALING.json["overlap_ablation"] (merge, not overwrite).
+Writes results/scaling.json["overlap_ablation"] (merge, not overwrite).
 """
 import json
 import os
@@ -55,8 +52,8 @@ CELLS = {
     "depth_36": (36, 512),
     "depth_144": (144, 512),
     "wide_bs2048": (36, 2048),
-    # group-size-4 cell (VERDICT r4 item 6): same shape as the 0.973
-    # wide_bs2048 cell, but a 4-process cluster.  This host has only 4
+    # group-size-4 cell: same shape as the wide_bs2048 cell, but a
+    # 4-process cluster.  This host has only 4
     # cores, so each worker gets ONE core (vs two in the 2-proc cells) —
     # absolute rates are not comparable across group sizes, but the
     # cluster/ablated pair inside the cell shares resources exactly, so
@@ -69,7 +66,7 @@ EPOCHS_TIMED = {"depth_36": 3, "depth_144": 1, "wide_bs2048": 1,
                 "wide_bs2048_4proc": 1}
 PROCS = {"wide_bs2048_4proc": 4}          # default 2
 
-SCALING_PATH = os.path.join(REPO, "SCALING.json")
+SCALING_PATH = os.path.join(REPO, "results", "scaling.json")
 
 
 def worker(pid, nproc, port, cell, mode):
@@ -83,14 +80,13 @@ def worker(pid, nproc, port, cell, mode):
         os.sched_setaffinity(0, {pid % ncpu})
     import jax
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_comp_cache_cpu"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    sys.path.insert(0, REPO)
+    from stochqn_tpu.utils import compile_cache
+    compile_cache.enable()
     # BOTH modes initialize the distributed runtime — the ablation must
     # only remove the collectives, not the cluster machinery
     jax.distributed.initialize(coordinator_address=f"localhost:{port}",
                                num_processes=nproc, process_id=pid)
-    sys.path.insert(0, REPO)
     import numpy as np
     import jax.numpy as jnp
     from stochqn_tpu.core.config import SQNConfig
@@ -241,16 +237,19 @@ def main():
               f"{effs[len(effs) // 2]:.3f}, median exposed "
               f"{exps[len(exps) // 2] / 1e3:.1f} ms", flush=True)
 
-    with open(SCALING_PATH) as f:
-        scaling = json.load(f)
+    scaling = {}
+    if os.path.exists(SCALING_PATH):
+        with open(SCALING_PATH) as f:
+            scaling = json.load(f)
     # merge per CELL: a partial (--only) run must never clobber the
     # other cells' recorded results
     section = scaling.get("overlap_ablation", {})
     section.update(results)
     scaling["overlap_ablation"] = section
+    os.makedirs(os.path.dirname(SCALING_PATH), exist_ok=True)
     with open(SCALING_PATH, "w") as f:
         json.dump(scaling, f, indent=1)
-    print("wrote SCALING.json['overlap_ablation']")
+    print("wrote results/scaling.json['overlap_ablation']")
 
 
 if __name__ == "__main__":

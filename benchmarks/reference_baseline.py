@@ -238,7 +238,7 @@ def multinomial_hessvec(w, v, X, Y, reg):
 
 def measure(precision: str = "double") -> dict:
     """Measure the reference build at the given precision.  The float32
-    measurement exists because bench.py's TPU path runs float32 — the
+    measurement exists because bench.py's GPU path runs float32 — the
     like-for-like comparison is against the reference's own float32
     instantiation (which benefits from 2x SIMD width in numpy evals)."""
     build_dir = tempfile.mkdtemp(prefix="stochqn_ref_")
@@ -322,7 +322,7 @@ def main():
     out["note"] = ("reference C core (both -DUSE_DOUBLE and -DUSE_FLOAT "
                    "builds, CPU, numpy gradient evals) on synthetic "
                    "BibTeX-shaped SQN workload; same shapes as bench.py. "
-                   "bench.py compares its float32 TPU run against the "
+                   "bench.py compares its float32 GPU run against the "
                    "float32 reference build.")
     with open(os.path.join(REPO, "BASELINE_MEASURED.json"), "w") as f:
         json.dump(out, f, indent=1)

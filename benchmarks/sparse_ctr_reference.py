@@ -41,7 +41,7 @@ CALC_GRAD, CALC_GRAD_BIG_BATCH = 101, 103
 
 def make_batches(rng, n_batches):
     """CSR batches generated by the SAME sparse_ctr.make_round that feeds
-    the TPU side — one generator, so the head-to-head stays locked to
+    the on-device side — one generator, so the head-to-head stays locked to
     identical data layout (the rows are converted to CSR here because the
     reference consumes scipy matrices)."""
     import importlib.util

@@ -3,9 +3,8 @@
 SQN commits only at upd_freq boundaries, so the interleaved layout's
 ring-write saving amortizes away — but its projection/expansion use the
 [2m, n] buffer DIRECTLY where the block layout feeds concat([s, y]) to
-the matmuls.  Round-3 ablation said XLA does not materialize that concat
-(split-concat fix measured negative), so the expected delta is ~0; this
-measures it on the bench.py workload (interleaved reps, 20-epoch chains).
+the matmuls.  This measures the difference on the bench.py workload
+(interleaved reps, 20-epoch chains).  Not yet run on the H100.
 """
 import os
 import sys
@@ -14,9 +13,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_comp_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from stochqn_tpu.utils import compile_cache
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
 

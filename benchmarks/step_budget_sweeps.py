@@ -1,20 +1,16 @@
 """Per-step budget sweeps for adaQN and oLBFGS on the flagship workload.
 
-Answers two "where does the time go" questions recorded in BENCH_NOTES.md:
+Answers two "where does the time go" questions:
 
 * adaQN: does per-step time scale with ``fisher_size``?  (If strongly —
   the in-scan Fisher append would be copying the whole
-  ``[fisher_size, n]`` buffer; measured: no, the scaling is the required
-  boundary Fisher product, amortized over ``upd_freq``.)
+  ``[fisher_size, n]`` buffer.)
 * oLBFGS: does per-step time scale with ``mem_size``?  (If yes — the
-  commit-time batched ``[2, m, m]`` Neumann chain of length m-1 would be
-  the bottleneck; measured: flat in m, so the cost is the fixed
-  per-iteration op chain: two gradients per step, Gram insertion,
-  cache rebuild.)
+  commit-time batched ``[2, m, m]`` Neumann chain would be the
+  bottleneck.)
 
-Chained-state timing with a device-to-host scalar barrier per rep
-(methodology rules in BENCH_NOTES.md).  Run on the real TPU, one process
-at a time.
+Chained-state timing with ``block_until_ready`` per rep.  One process per
+card.  Not yet run on the H100.
 """
 import os
 import statistics
@@ -24,9 +20,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_comp_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from stochqn_tpu.utils import compile_cache
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
 

@@ -31,7 +31,6 @@ PAGES = [
     ("design.md", "Architecture & design"),
     ("protocol.md", "Protocol & reference quirks"),
     ("api.md", "API guide"),
-    ("perf_guide.md", "Performance tuning"),
     ("migration.md", "Migrating from stochQN"),
     ("r_bindings.md", "R bindings"),
     ("api_reference.md", "API reference (generated)"),
@@ -92,8 +91,8 @@ th {{ background: #f0f1f3; }}
 
 _INDEX_MD = """# stochqn_tpu documentation
 
-TPU-native stochastic limited-memory quasi-Newton framework: oLBFGS,
-SQN and adaQN re-designed for JAX/XLA/Pallas — fused `lax.scan`
+Stochastic limited-memory quasi-Newton optimizers: oLBFGS, SQN and
+adaQN re-designed for JAX/XLA — fused `lax.scan`
 training epochs, sharded two-loop recursion, a protocol-compatible
 free-mode API, a scikit-learn-style guided layer, a header-only C++17
 native tier with Python (ctypes) and R bindings, and measured parity +
@@ -104,8 +103,8 @@ Start with [Architecture & design](design.md), or jump straight to the
 [Migrating from stochQN](migration.md) and the
 [protocol quirk list](protocol.md).
 
-Benchmarks and measured numbers live in the repository root
-(`BENCH_NOTES.md`); this site covers concepts and APIs.
+Measured numbers live in the repository root (`PERF.md`); this site
+covers concepts and APIs.
 """
 
 

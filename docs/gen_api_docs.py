@@ -38,7 +38,6 @@ MODULES = [
     "stochqn_tpu.ops.two_loop",
     "stochqn_tpu.ops.pairs",
     "stochqn_tpu.ops.accumulators",
-    "stochqn_tpu.ops.pallas.two_loop_kernel",
     "stochqn_tpu.models.logistic",
     "stochqn_tpu.models.losses",
     "stochqn_tpu.models.mlp",

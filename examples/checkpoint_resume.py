@@ -9,7 +9,7 @@ the uninterrupted trajectory bit-for-bit on the same backend.
 The reference has no serialization API (its state lives in Python/R holder
 objects one could pickle by hand, ``stochqn/_optimizers.py:791-879``);
 here it is a first-class, tested capability (``utils/checkpoint.py``:
-dependency-free .npz and orbax formats).
+a dependency-free .npz format).
 
 Run: python examples/checkpoint_resume.py
 """

@@ -2,13 +2,13 @@
 
 BASELINE config 5: large sparse click-through-rate data, hashed into a
 dense feature space, minibatches sharded across the device mesh's ``data``
-axis.  Gradients / Hessian-vector products reduce with a single psum over
-ICI (inserted automatically by GSPMD from the sharding annotations).
+axis.  Gradients / Hessian-vector products reduce with a single psum
+(inserted automatically by GSPMD from the sharding annotations).
 
 Run on CPU with a virtual mesh:
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/data_parallel_sqn.py
-or on a real multi-chip TPU slice unchanged.
+or on a machine with several GPUs unchanged.
 """
 import os
 import sys

@@ -9,7 +9,7 @@ pairs, SQN jvp Hessian-vector products, adaQN's function-value guard)
 trains the pytree directly — the ravel/unravel to the optimizer's flat
 ``x[n]`` is handled internally.
 
-Runs on CPU or TPU.  A two-layer tanh MLP on a synthetic two-moons-style
+Runs on CPU or GPU.  A two-layer tanh MLP on a synthetic two-moons-style
 binary task; adaQN with the RMSProp-preconditioned two-loop and the
 ``max_incr`` guard active.
 """

@@ -15,9 +15,9 @@ import argparse
 import jax
 
 # A 2-parameter host-driven request loop gains nothing from an
-# accelerator and pays a device round trip per protocol call (on a
-# networked TPU that is ~ms each) — pin CPU.  The on-device execution
-# mode is the fused engine: see fused_tpu_training.py.
+# accelerator and pays a device round trip per protocol call — pin CPU.
+# The on-device execution mode is the fused engine: see
+# fused_training.py.
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)   # match the reference's f64
 

@@ -11,8 +11,8 @@ the composed row orders are precomputed host-side and gathered on device,
 with ``parallel.epoch_batch_constraint`` keeping the gathered batches
 data-parallel.
 
-On real hardware the same code spans TPU chips over ICI; here it runs on
-8 virtual CPU devices so the example is self-contained.
+On a machine with several GPUs the same code spans them over NVLink; here
+it runs on 8 virtual CPU devices so the example is self-contained.
 
 Run: python examples/sharded_guided_fit.py
 """

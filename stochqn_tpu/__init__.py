@@ -1,4 +1,4 @@
-"""stochqn_tpu — TPU-native stochastic limited-memory quasi-Newton framework.
+"""stochqn_tpu — stochastic limited-memory quasi-Newton optimizers in JAX.
 
 A from-scratch JAX/XLA re-design of the capabilities of the stochQN
 reference library (oLBFGS, SQN, adaQN): request-driven free-mode protocol,

@@ -3,7 +3,7 @@
 ``minimize`` is the front door for the fused engine: give it a JAX loss,
 an initial point (flat vector or pytree), and batched data; it builds the
 optimizer, runs fused epochs on the accelerator, and returns the result —
-the TPU-native counterpart of the reference's guided ``fit`` loop.
+the on-device counterpart of the reference's guided ``fit`` loop.
 """
 from __future__ import annotations
 

@@ -101,7 +101,6 @@ def advance(cfg: AdaQNConfig, state: AdaQNState, grad: jax.Array,
         else:
             h0_diag = jax.lax.rsqrt(acc + jnp.asarray(cfg.scal_reg, acc.dtype))
         d_mem = two_loop_cached(grad, st.mem, diag=h0_diag,
-                                use_pallas=cfg.use_pallas,
                                 coupling=cfg.coupling)
         d = jnp.where(st.mem.count > 0, d_mem, rescaled)
 

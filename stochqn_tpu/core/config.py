@@ -45,16 +45,15 @@ class OLBFGSConfig:
     min_curvature: float = 1e-4  # 0 -> accept every pair
     y_reg: float = 0.0           # y += y_reg * s
     check_nan: bool = True
-    # Store the (s, y) ring in bfloat16 (float32 math): halves the two-loop
-    # memory traffic for large n at a small accuracy cost. TPU extra.
+    # Store the (s, y) ring in bfloat16 (float32 math): halves the pair
+    # memory's bytes for large n at a small accuracy cost.
     pairs_bf16: bool = False
     # Store the ring as one flat [2m, n] buffer (rows [s_0, y_0, s_1,
     # ...]): each per-iteration commit is then ONE contiguous [2, n] write
     # instead of two [n] row writes — targeted at oLBFGS's every-iteration
-    # commits.  Measured +10.6 us/step (1.069x) at the flagship shape (see
-    # core.state.BFGSMemoryInterleaved; BENCH_NOTES "oLBFGS interleaved
-    # pair layout").  Same trajectories to float tolerance (the final
-    # expansion contracts the 2m rows in a different order).
+    # commits (see core.state.BFGSMemoryInterleaved; not measured on the
+    # H100).  Same trajectories to float tolerance (the final expansion
+    # contracts the 2m rows in a different order).
     pairs_interleaved: bool = False
 
     # oLBFGS produces one correction pair per iteration.
@@ -140,15 +139,9 @@ class AdaQNConfig:
     h0_exact_reference: bool = True
     pairs_bf16: bool = False     # see OLBFGSConfig.pairs_bf16
     fisher_bf16: bool = False    # bfloat16 Fisher gradient store (f32 math)
-    # Pallas fused projection kernel for the per-step diagonal-H0 two-loop
-    # (single pass computing W g, (Y*D) g, (Y*D) Y^T).  None = auto,
-    # currently OFF at every size: the matvec coupling form in
-    # ops/two_loop.two_loop_cached beats the kernel even at n=16M
-    # (BENCH_NOTES.md).  True forces the kernel on for comparison.
-    use_pallas: bool | None = None
     # Diagonal-H0 coupling formulation (see ops/two_loop.two_loop_cached):
-    # "matvec" (default) is fastest on a chip; "gram" keeps the per-step
-    # psum count at one under a param-sharded n axis.
+    # "matvec" (default) moves the fewest bytes on one device; "gram" keeps
+    # the per-step psum count at one under a param-sharded n axis.
     coupling: str = "matvec"
 
     @classmethod
@@ -157,7 +150,7 @@ class AdaQNConfig:
                rmsprop_weight=None, y_reg=None, use_grad_diff=False,
                check_nan=True, h0_exact_reference=True,
                pairs_bf16=False, fisher_bf16=False,
-               use_pallas=None, coupling="matvec") -> "AdaQNConfig":
+               coupling="matvec") -> "AdaQNConfig":
         if mem_size <= 0 or bfgs_upd_freq <= 0:
             raise ValueError("'mem_size' and 'bfgs_upd_freq' must be positive")
         # Reference: fisher_size=None forces use_grad_diff
@@ -189,6 +182,5 @@ class AdaQNConfig:
             h0_exact_reference=bool(h0_exact_reference),
             pairs_bf16=bool(pairs_bf16),
             fisher_bf16=bool(fisher_bf16),
-            use_pallas=None if use_pallas is None else bool(use_pallas),
             coupling=_check_coupling(coupling),
         )

@@ -10,12 +10,12 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from stochqn_tpu.core.enums import Info
+from stochqn_tpu.core.pytree import dataclass
 
 
-@struct.dataclass
+@dataclass
 class AdvanceResult:
     task: jax.Array       # int32 Task code
     info: jax.Array       # int32 Info code

@@ -3,7 +3,7 @@
 The reference keeps optimizer state in C structs of raw pointers mirrored by
 language-side "holder" objects (``stochqn/_optimizers.py:791-879``,
 ``include/stochqn.h:86-151``).  Here the whole state is a single immutable JAX
-pytree: device-resident, trivially checkpointable (orbax / pickle of numpy
+pytree: device-resident, trivially checkpointable (``.npz`` of numpy
 leaves), shardable along the parameter axis, and usable as a ``lax.scan``
 carry.  The C coroutine's ``section`` resume-point field becomes an int32 leaf
 driving a ``lax.switch``.
@@ -18,7 +18,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from stochqn_tpu.core.pytree import dataclass, static_field
 
 
 def _own(x0) -> jax.Array:
@@ -35,7 +36,7 @@ def _own(x0) -> jax.Array:
     return jnp.array(x0, copy=True)
 
 
-@struct.dataclass
+@dataclass
 class BFGSMemory:
     """Ring buffer of (s, y) correction pairs, chronological via head/count.
 
@@ -125,7 +126,7 @@ class BFGSMemory:
         return self.replace(head=zero, count=zero)
 
 
-@struct.dataclass
+@dataclass
 class BFGSMemoryInterleaved:
     """:class:`BFGSMemory` with the pair rows stored interleaved, as a
     SHIFT buffer (newest pair first) rather than a rotating ring.
@@ -135,29 +136,22 @@ class BFGSMemoryInterleaved:
     pass (``[new slab; sy[:-2]]``, vetoed by a scalar select on reject);
     ``head`` is kept for API symmetry but is always 0 — chronology is
     positional.  Motivation: oLBFGS commits a pair EVERY iteration, and
-    a dynamic-update-slice into a ``lax.scan`` carry makes XLA copy the
-    whole buffer before writing (measured 55 us/step at the flagship
-    shape vs 36.5 us for the shift rewrite — BENCH_NOTES "oLBFGS op
-    budget", round 5); two separate ``[n]`` row writes into block-layout
-    buffers cost even more (~27 us each).
+    a dynamic-update-slice into a ``lax.scan`` carry can make XLA copy
+    the whole buffer before writing; the rewrite pays one sequential pass
+    instead.  The shift rewrite won on the earlier accelerator (PERF.md);
+    it has not been measured on the H100.
 
     ``shift`` (static, decided at :meth:`create`): the shift rewrite
     holds input AND output buffers live across the commit, so its PEAK
     footprint is 2x the pair memory — fine at streaming scale, fatal at
-    the capacity ceiling (the n=128M bf16 cell OOMed when shift was
-    unconditional).  Buffers larger than :data:`SHIFT_MAX_BYTES` fall
-    back to the round-4 DUS ring (rotating ``head``, in-place at the
-    donated program boundary), which is what carries the 128M capacity
-    claim.  Chronology handling follows the mode (``ops/pairs``).
+    the capacity ceiling.  Buffers larger than :data:`SHIFT_MAX_BYTES`
+    fall back to the DUS ring (rotating ``head``, in-place at the donated
+    program boundary), whose peak is 1x.  Chronology handling follows the
+    mode (``ops/pairs``).
 
-    Why ``[2m, n]`` flat and not ``[m, 2, n]``: on TPU the physical tiling
-    follows the two minor dimensions, and a ``[.., 2, n]`` buffer gets a
-    ``T(2, 128)`` tile — only 2 of 8 sublanes used, quartering the
-    effective bandwidth of EVERY streaming pass over the memory (measured:
-    the [m, 2, n] variant ran 0.66x the block layout; the compiled HLO
-    shows the ``T(2,128)`` layout assignment).  ``[2m, n]`` keeps the
-    standard ``T(8, 128)`` tile, and the two-loop needs no reshape at all:
-    the buffer IS ``W`` (in interleaved row order).
+    Why ``[2m, n]`` flat and not ``[m, 2, n]``: the two-loop then needs
+    no reshape at all — the buffer IS ``W`` (in interleaved row order) —
+    and every streaming pass reads long contiguous rows.
 
     The ``gram`` cache and the collapsed-direction matrices ``c0``/``cg``
     are kept in INTERLEAVED index order (rows ``[s_0, y_0, s_1, y_1,
@@ -186,7 +180,7 @@ class BFGSMemoryInterleaved:
     cg: jax.Array         # [2m, 2m], INTERLEAVED order
     # static commit mode: True = shift rewrite (fast), False = DUS ring
     # (capacity) — see the class docstring
-    shift: bool = struct.field(pytree_node=False, default=True)
+    shift: bool = static_field(default=True)
 
     @classmethod
     def create(cls, mem_size: int, n: int, dtype=jnp.float32,
@@ -218,10 +212,10 @@ class BFGSMemoryInterleaved:
         return self.replace(head=zero, count=zero)
 
 
-# Above this pair-buffer size the interleaved layout commits via the
-# round-4 DUS ring instead of the shift rewrite: the shift's transient
-# peak is 2x the buffer, which OOMed the n=128M bf16 capacity cell
-# (5.1 GB pairs) when shift was unconditional.
+# Above this pair-buffer size the interleaved layout commits via the DUS
+# ring instead of the shift rewrite: the shift's transient peak is 2x the
+# buffer.  The value was chosen for the 16 GB earlier accelerator
+# (PERF.md) and has not been measured on the H100's 80 GB.
 SHIFT_MAX_BYTES = 4 * 1024 ** 3
 
 
@@ -231,7 +225,7 @@ def make_bfgs_memory(mem_size: int, n: int, dtype=jnp.float32,
     return cls.create(mem_size, n, dtype, storage_dtype)
 
 
-@struct.dataclass
+@dataclass
 class FisherMemory:
     """Ring buffer of recent minibatch gradients for adaQN's empirical Fisher.
 
@@ -243,14 +237,12 @@ class FisherMemory:
     the per-step append is a shift rewrite (``[g; f[:-1]]``, newest row
     first) instead of a dynamic-update-slice into the ring slot — the
     same economics as the oLBFGS shift pair buffer: a DUS into a
-    ``lax.scan`` carry costs a near-constant mutated-carry price (~23
-    us/step at the flagship shape) while the rewrite pays bytes, so the
-    rewrite wins exactly when ``2 * fs * n * itemsize`` is cheap.
-    Measured (interleaved A/B, ``benchmarks/fisher_append_ab.py``):
-    fisher_size=4 **0.890x** whole-step time (5/5 pairs, 100.6 -> 89.5
-    us); fisher_size=100 6.4x WORSE — hence the
+    ``lax.scan`` carry costs a near-constant mutated-carry price while
+    the rewrite pays bytes, so the rewrite wins exactly when
+    ``2 * fs * n * itemsize`` is cheap — hence the
     :data:`FISHER_SHIFT_MAX_BYTES` bound (the reference default fs=100
-    stays on the DUS ring).  Occupancy semantics are identical (valid
+    stays on the DUS ring; ``benchmarks/fisher_append_ab.py`` compares
+    the two).  Occupancy semantics are identical (valid
     rows are always ``[0, count)`` while filling, everything once full);
     only the storage order differs, which ``F^T (F s)`` sums over — a
     float reduction-order delta of the same class the engines already
@@ -262,7 +254,7 @@ class FisherMemory:
     count: jax.Array  # int32
     # static append mode: True = shift rewrite (small buffers), False =
     # DUS ring — see the class docstring
-    shift: bool = struct.field(pytree_node=False, default=False)
+    shift: bool = static_field(default=False)
 
     @classmethod
     def create(cls, fisher_size: int, n: int, dtype=jnp.float32,
@@ -303,9 +295,9 @@ class FisherMemory:
         shift mode).
 
         Block-ingestion API (e.g. replaying recorded gradients into a
-        resumed state).  The fused engine deliberately does NOT use it:
-        the deferred-append round layout was measured SLOWER than the
-        per-step ring write (BENCH_NOTES "adaQN op budget").
+        resumed state).  The fused engine does NOT use it: the
+        deferred-append round layout was slower than the per-step ring
+        write on the earlier accelerator (PERF.md).
         """
         size = self.f.shape[0]
         k = grads.shape[0]
@@ -327,13 +319,13 @@ class FisherMemory:
 
 
 # Above this Fisher-buffer size the per-step append stays a DUS ring
-# write: the shift rewrite pays 2 x buffer bytes per step, which loses
-# past ~8 MB (break-even vs the ~23 us mutated-carry DUS price at
-# 819 GB/s; fs=100 at flagship n measured 6.4x WORSE shifted).
+# write: the shift rewrite pays 2 x buffer bytes per step.  The break-even
+# was chosen on the earlier accelerator (PERF.md) and has not been
+# measured on the H100.
 FISHER_SHIFT_MAX_BYTES = 8 * 1024 ** 2
 
 
-@struct.dataclass
+@dataclass
 class OLBFGSState:
     """Full oLBFGS optimizer state (``workspace_oLBFGS``,
     ``include/stochqn.h:109-120``)."""
@@ -361,7 +353,7 @@ class OLBFGSState:
         )
 
 
-@struct.dataclass
+@dataclass
 class SQNState:
     """Full SQN optimizer state (``workspace_SQN``,
     ``include/stochqn.h:122-133``).
@@ -400,7 +392,7 @@ class SQNState:
         )
 
 
-@struct.dataclass
+@dataclass
 class AdaQNState:
     """Full adaQN optimizer state (``workspace_adaQN``,
     ``include/stochqn.h:135-151``)."""

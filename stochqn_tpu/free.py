@@ -19,10 +19,10 @@ only per-call host traffic is the scalars in the request dict plus the
 evaluation-point array the user asked for.  For fully on-device training
 loops use :mod:`stochqn_tpu.fused` instead.
 
-Dtype note: like the reference, ``use_float=False`` selects float64 — which
-on TPU requires ``jax.config.update("jax_enable_x64", True)`` and is slow
-(emulated).  Pass ``use_float=True`` (float32) for TPU work, or set
-``dtype=`` explicitly (including ``jnp.bfloat16``).
+Dtype note: like the reference, ``use_float=False`` selects float64, which
+needs ``jax.config.update("jax_enable_x64", True)``; the H100 runs float64
+natively, at a fraction of its float32 rate.  Pass ``use_float=True``
+(float32), or set ``dtype=`` explicitly (including ``jnp.bfloat16``).
 """
 from __future__ import annotations
 
@@ -212,8 +212,8 @@ class oLBFGS_free(_StochQNFree):
         del nthreads  # parallelism is XLA's (or the compiler's) job here
         self.dtype = _resolve_dtype(use_float, dtype, backend)
         if backend != "jax" and (pairs_bf16 or pairs_interleaved):
-            raise ValueError("pairs_bf16/pairs_interleaved are TPU-path "
-                             "extras (backend='jax' only)")
+            raise ValueError("pairs_bf16/pairs_interleaved are JAX-engine "
+                             "options (backend='jax' only)")
         self._cfg = OLBFGSConfig.create(
             mem_size=mem_size, hess_init=hess_init,
             min_curvature=min_curvature, y_reg=y_reg, check_nan=check_nan,
@@ -252,8 +252,8 @@ class SQN_free(_StochQNFree):
         del nthreads
         self.dtype = _resolve_dtype(use_float, dtype, backend)
         if backend != "jax" and (pairs_bf16 or pairs_interleaved):
-            raise ValueError("pairs_bf16/pairs_interleaved are TPU-path "
-                             "extras (backend='jax' only)")
+            raise ValueError("pairs_bf16/pairs_interleaved are JAX-engine "
+                             "options (backend='jax' only)")
         self._cfg = SQNConfig.create(
             mem_size=mem_size, bfgs_upd_freq=bfgs_upd_freq,
             min_curvature=min_curvature, y_reg=y_reg,

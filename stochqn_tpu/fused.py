@@ -1,6 +1,6 @@
 """Fused on-device training engine.
 
-This is the TPU-native execution mode the reference cannot offer: instead of
+This is the on-device execution mode the reference cannot offer: instead of
 bouncing a request/response protocol across the host boundary on every
 gradient (``stochqn/_optimizers.py:339-382`` + Cython + C), the user's loss
 / gradient functions are JAX callables and an entire optimizer iteration —
@@ -83,10 +83,10 @@ def _flat(batch):
     The merge keeps the (possibly data-sharded) example axis MAJOR:
     reshaping ``[k, bs, ...] -> [k*bs, ...]`` with ``bs`` sharded would
     interleave shards along the merged axis — a sharding GSPMD cannot
-    represent, so it materializes an all-gather of the whole stack
-    (measured: 16.8 MB per epoch across a 2-process mesh before this
-    fix).  ``[bs, k, ...] -> [bs*k, ...]`` keeps each device's rows
-    contiguous and collective-free.  Big batches are consumed only
+    represent, so it materializes an all-gather of the whole stack (the
+    compiled HLO shows it; ``parallel.hlo_stats`` counts the bytes).
+    ``[bs, k, ...] -> [bs*k, ...]`` keeps each device's rows contiguous
+    and collective-free.  Big batches are consumed only
     through sample means (gradients / jvp / function values), which are
     order-invariant up to float reduction order.
     """
@@ -122,8 +122,8 @@ def olbfgs_step(cfg: OLBFGSConfig, grad_fn: GradFn, state: OLBFGSState,
     # grad_prev and s_pending are dead across fused steps (the pair is
     # built within the step), and at any protocol resume point
     # (section 1) both are rewritten before being read — so they stay
-    # PASS-THROUGH in the scan carry: every avoided [n]-buffer mutation
-    # in the hot body is a measured win (BENCH_NOTES "adaQN op budget").
+    # PASS-THROUGH in the scan carry: each mutated [n] carry leaf is one
+    # more buffer write per step.
     mem_final = mem_final.replace(s_pending=state.mem.s_pending)
     state = state.replace(x=x_new, mem=mem_final,
                           niter=state.niter + 1,
@@ -145,14 +145,11 @@ def _olbfgs_epoch_paired(cfg: OLBFGSConfig, grad_fn: GradFn, state,
     ``[2, bs, ...]`` batch: every matmul in the user's gradient becomes one
     batched op instead of two sequential ones.
 
-    MEASURED NEGATIVE RESULT (kept as an off-by-default knob): on the
-    flagship workload this is 13-16% slower than the sequential layout.
-    The op-count intuition fails here because a second back-to-back
-    gradient chain is nearly free (single-grad scan 50.4 us/step, double
-    59.4) while the vmapped pair costs 71.7 us/step -- the batch-2
-    dot_generals and the doubled per-step batch reads cost more than the
-    dispatch they save.  See BENCH_NOTES.md "oLBFGS paired-gradient
-    study" / ``benchmarks/olbfgs_paired.py``.
+    Off by default: on the earlier accelerator (PERF.md) it was slower
+    than the sequential layout on the flagship workload (the batch-2
+    dot_generals and doubled batch reads cost more than the dispatch they
+    save).  Not measured on the H100 (``benchmarks/olbfgs_paired.py``
+    compares the two).
 
     The pair commit for iteration ``k`` is therefore deferred into iteration
     ``k+1`` (it uses ``g2_k`` from the fused call, *before* the two-loop
@@ -304,8 +301,8 @@ def _adaqn_base(cfg: AdaQNConfig, grad_fn: GradFn, state: AdaQNState,
 
     The Fisher ring append happens here, per step, like the reference
     (``src/stochqn.c:1174``).  A deferred layout (gradients emitted as
-    scan outputs, one batched insert at the boundary) was measured and
-    is SLOWER — see BENCH_NOTES "adaQN op budget"."""
+    scan outputs, one batched insert at the boundary) was slower on the
+    earlier accelerator (PERF.md); not measured on the H100."""
     g = grad_fn(state.x, batch)
     if not cfg.use_grad_diff:
         state = state.replace(fisher=state.fisher.append(g))
@@ -318,7 +315,6 @@ def _adaqn_base(cfg: AdaQNConfig, grad_fn: GradFn, state: AdaQNState,
         h0_diag = jax.lax.rsqrt(acc_sq + jnp.asarray(cfg.scal_reg,
                                                      acc_sq.dtype))
     d_mem = two_loop_cached(g, state.mem, diag=h0_diag,
-                            use_pallas=cfg.use_pallas,
                             coupling=cfg.coupling)
     d = jnp.where(state.mem.count > 0, d_mem, rescaled)
     bad = direction_is_bad(d) if cfg.check_nan else jnp.zeros((), bool)
@@ -468,30 +464,22 @@ class FusedTrainer:
     hess_vec_fn: Optional[HessVecFn] = None
     # Unroll factor for the inner per-step ``lax.scan``s (semantics-
     # preserving; lax.scan handles any factor).  ``None`` = auto:
-    # 8 for oLBFGS, 1 otherwise.  For SQN/adaQN every measured factor
-    # LOST 10-14% (BENCH_NOTES unroll sweep) — their inner scans carry no
-    # buffer mutations to amortize.  oLBFGS is different AFTER the
-    # round-5 shift-ring commit: an interleaved A/B measures unroll=8 at
-    # 0.86x the step time (7/7 pairs, 99.6 -> 83.6 us/step —
-    # ``benchmarks/olbfgs_unroll_ab.py``); pre-shift sessions showed
-    # losses, so the win is specific to the rewrite-style commit.
+    # 8 for oLBFGS, 1 otherwise.  Both values were chosen on the earlier
+    # accelerator (PERF.md; ``benchmarks/olbfgs_unroll_ab.py``,
+    # ``benchmarks/unroll_sweep.py``) and have not been measured on the
+    # H100.
     unroll: Optional[int] = None
     # oLBFGS only: fuse the two per-iteration gradient evaluations into one
     # vmapped call via software pipelining (see ``_olbfgs_epoch_paired``).
-    # Trajectory-identical, but measured SLOWER on the flagship workload
-    # (3.8k vs 4.4k iters/s): a second sequential gradient chain costs only
-    # ~9 us/step on this backend while the vmapped [2, bs, ...] version's
-    # batched dot_generals cost ~21 us/step over a single gradient — see
-    # BENCH_NOTES.md "oLBFGS paired-gradient study".  Default off; kept as
-    # a measured knob (like ``unroll``).
+    # Trajectory-identical; default off because it was slower on the
+    # earlier accelerator (PERF.md).  Not measured on the H100.
     paired_grads: bool = False
     # Donate the state carry into the jitted epoch (``run_epochs`` /
     # ``jit_epoch``) so XLA reuses the ``[m, n]`` pair-memory buffers
     # in place instead of holding input+output copies of them across the
     # epoch dispatch.  This halves the peak pair-memory footprint — the
-    # capacity axis at the top of the single-chip range (f32 n=64M needs
-    # 5.1 GB of pairs; see BENCH_NOTES.md large-n table) — and is
-    # trajectory-identical (locked by
+    # capacity axis at the top of the single-card range (f32 n=64M needs
+    # 5.1 GB of pairs) — and is trajectory-identical (locked by
     # ``tests/test_fused.py::test_donated_epoch_trajectory_identical``).
     # The cost: the state passed INTO ``run_epochs``/the jitted epoch is
     # CONSUMED (its buffers are invalidated).  Default OFF so the public
@@ -503,11 +491,11 @@ class FusedTrainer:
     # Optional resharding hook for :meth:`jit_epochs_scheduled`: applied to
     # each epoch's gathered-and-rebatched data pytree inside the scan body.
     # The device-side gather that implements the per-epoch shuffle leaves
-    # its output's sharding to GSPMD, which (measured on a (4 data x 2
-    # param) mesh) REPLICATES the example axis — the per-epoch gather
-    # compiles to one dataset-shard all-reduce over the data axis, and
-    # every device then computes full-batch gradients: correct, but data
-    # parallelism is lost for the whole epoch.  Pass
+    # its output's sharding to GSPMD, which (in the compiled HLO of a
+    # (4 data x 2 param) mesh) REPLICATES the example axis — the
+    # per-epoch gather compiles to one dataset-shard all-reduce over the
+    # data axis, and every device then computes full-batch gradients:
+    # correct, but data parallelism is lost for the whole epoch.  Pass
     # ``parallel.epoch_batch_constraint(mesh)`` to pin the within-batch
     # example axis back onto the data mesh axis (the per-step gradient
     # all-reduce then reappears, exactly as in the pre-sharded-data
@@ -516,14 +504,12 @@ class FusedTrainer:
     # Unroll the per-ROUND scan of the chunked epoch into straight-line
     # code (None = auto: unroll when the epoch has <= 8 rounds).  The
     # boundary commit mutates the [m, n] ring buffers through dynamic-
-    # update-slices; inside a lax.scan carry XLA pays a full pair-memory
-    # copy at (nearly) every boundary — the round-5 attribution probes
-    # price the ring-row writes at ~139 us/boundary at the flagship
-    # shape, ~4x the actual row bytes.  Unrolling turns the 6 boundary
-    # DUS chains of an epoch into consecutive straight-line updates that
-    # alias in place: measured 44.3 -> 41.9 us/step on the flagship
-    # workload (benchmarks/flagship_attribution.py, "full_unrolled").
-    # Trajectory-identical (same ops, same order; locked by
+    # update-slices; inside a lax.scan carry XLA may copy the whole pair
+    # memory first.  Unrolling turns the boundary DUS chains of an epoch
+    # into consecutive straight-line updates that alias in place.  The
+    # 8-round threshold was chosen on the earlier accelerator (PERF.md;
+    # benchmarks/flagship_attribution.py) and has not been measured on
+    # the H100.  Trajectory-identical (same ops, same order; locked by
     # tests/test_fused.py::test_unrolled_rounds_trajectory_identical).
     # The threshold bounds compile-time growth for many-round epochs.
     unroll_rounds: Optional[bool] = None
@@ -647,12 +633,10 @@ class FusedTrainer:
                                      step_size)
                 return st2, bad
         else:
-            # The per-step Fisher ring write costs ~23 us/step, but
-            # DEFERRING it (emit g as a scan output, one append_block at
-            # the boundary) measures WORSE (95 vs 81 us/step): stacking
-            # an [n] output per step is more expensive than the in-place
-            # ring write.  Measured both ways — the per-step append
-            # stays (BENCH_NOTES "adaQN op budget").
+            # The Fisher ring append stays per step: deferring it (emit
+            # g as a scan output, one append_block at the boundary) was
+            # slower on the earlier accelerator (PERF.md); not measured
+            # on the H100.
             def inner(st2, batch):
                 st2, bad, _g = _adaqn_base(self.cfg, self.grad_fn, st2,
                                            batch, step_size)
@@ -735,12 +719,9 @@ class FusedTrainer:
         Returns ``(state, infos[nepochs, B])``.
 
         Motivation: one host round trip per N epochs instead of per
-        epoch.  On this machine's async dispatch pipeline the measured
-        difference vs per-epoch dispatches is within rep noise at
-        20-epoch runs (BENCH_NOTES "dispatch amortization A/B"), but a
-        single program removes all host jitter from the timed window and
-        is the right shape for synchronous callers (e.g. drivers that
-        block on results each epoch, where the round trip IS exposed).
+        epoch.  A single program removes all host jitter from the timed
+        window and is the right shape for synchronous callers (e.g.
+        drivers that block on results each epoch, where the round trip IS exposed).
         Use when the batch schedule is epoch-invariant; per-epoch
         shuffles / step decay with a precomputable schedule belong in
         :meth:`jit_epochs_scheduled`, and schedules that need per-epoch
@@ -785,9 +766,8 @@ class FusedTrainer:
         - ``step_sizes [nepochs]`` — the per-epoch step size.
 
         and the scan body gathers each epoch's rows on device (one
-        dataset-sized gather per epoch — ~50 us at BibTeX scale, against
-        a ~28 ms exposed round trip per epoch for a synchronous caller;
-        BENCH_NOTES "dispatch amortization A/B").  ``flat_data`` leaves
+        dataset-sized gather per epoch, in place of one exposed host round
+        trip per epoch for a synchronous caller).  ``flat_data`` leaves
         are UNbatched ``[n_rows, ...]``; ``batch_size`` is static.
         Returns ``(state, infos[nepochs, B])``.  State donation follows
         ``self.donate``.

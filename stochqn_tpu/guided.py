@@ -66,6 +66,22 @@ def _epoch_shuffle_order(random_state, epoch, n_rows):
     return np.argsort(np.random.random(size=n_rows))
 
 
+def _valset_split(n_rows, frac, random_state):
+    """``(train_rows, val_rows)`` exactly as scikit-learn's
+    ``train_test_split(..., test_size=frac, random_state=random_state)``
+    draws them (its ``ShuffleSplit``): one permutation, the first
+    ``ceil(frac * n_rows)`` rows held out."""
+    if random_state is None:
+        rs = np.random.mtrand._rand
+    elif isinstance(random_state, np.random.RandomState):
+        rs = random_state
+    else:
+        rs = np.random.RandomState(random_state)
+    order = rs.permutation(n_rows)
+    n_val = int(np.ceil(frac * n_rows))
+    return order[n_val:], order[:n_val]
+
+
 def _take_rows(arr, order):
     if arr is None:
         return None
@@ -343,16 +359,12 @@ class _GuidedBase:
                 warnings.warn("'valset_frac' is ignored when passing an "
                               "explicit validation set.")
         elif self.valset_frac is not None:
-            from sklearn.model_selection import train_test_split
-            if sample_weight is None:
-                X, X_val, y, y_val = train_test_split(
-                    X, y, test_size=self.valset_frac,
-                    random_state=self.random_state)
-                w_val = None
-            else:
-                X, X_val, y, y_val, sample_weight, w_val = train_test_split(
-                    X, y, sample_weight, test_size=self.valset_frac,
-                    random_state=self.random_state)
+            train, val = _valset_split(X.shape[0], self.valset_frac,
+                                       self.random_state)
+            X, X_val = _take_rows(X, train), _take_rows(X, val)
+            y, y_val = _take_rows(y, train), _take_rows(y, val)
+            sample_weight, w_val = (_take_rows(sample_weight, train),
+                                    _take_rows(sample_weight, val))
         else:
             X_val, y_val, w_val = None, None, None
 
@@ -596,8 +608,7 @@ class _GuidedBase:
         # runs as ONE device program: the guided loop is a synchronous
         # caller — ``np.asarray(infos)`` blocks on a device-to-host round
         # trip every epoch — so collapsing N epochs into one dispatch
-        # removes N-1 exposed round trips (measured 4.24x on a 20-epoch
-        # flagship fit; BENCH_NOTES "dispatch amortization A/B").  The
+        # removes N-1 exposed round trips.  The
         # per-epoch shuffle and step decay do NOT force the host loop:
         # both are deterministic in the epoch index, so the composed row
         # orders and step sizes are precomputed and the scan body gathers

@@ -82,7 +82,7 @@ class StochasticLogisticRegression:
     ``reg_param`` is l2 strength on an *average* log-loss (sample weights are
     normalized), ``optimizer`` is one of ``"oLBFGS" | "SQN" | "adaQN"``, and
     extra ``optimizer_kwargs`` flow to the underlying guided optimizer.
-    ``dtype`` (TPU extra) selects the compute dtype; default float32.
+    ``dtype`` (an extension) selects the compute dtype; default float32.
     """
 
     def __init__(self, reg_param=1e-3, fit_intercept=True, random_state=1,

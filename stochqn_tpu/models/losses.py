@@ -185,5 +185,5 @@ def multinomial_logistic_predict_proba(w, X, n_classes):
 
 
 def multinomial_logistic_predict_softmax(w, X, n_classes):
-    """Proper softmax class probabilities (TPU-native extra)."""
+    """Proper softmax class probabilities (an extension)."""
     return jax.nn.softmax(_mult_logits(w, X, n_classes), axis=-1)

@@ -4,17 +4,17 @@ The reference is sparse-aware end-to-end: the guided driver vstacks CSR
 batches (``stochqn/_optimizers.py:81-112``) and the logistic model accepts
 CSR matrices directly (``stochqn/_logistic.py:36-247``, via sklearn's
 sparse-capable internals).  A CSR matrix has a *dynamic* nnz per row —
-hostile to XLA's static-shape compilation model — so the TPU-native design
+hostile to XLA's static-shape compilation model — so this design
 converts once on the host to **padded COO**: every row stores exactly
 ``k = max_nnz`` (bucketed to a multiple) ``(index, value)`` slots, padding
 with ``index 0, value 0`` which contributes nothing to any product.
 
 Compute mapping:
   * margins  — ``gather`` of the coefficient rows at ``indices`` followed
-    by a ``[B, k]`` elementwise multiply-reduce (VPU work, fully fused),
+    by a ``[B, k]`` elementwise multiply-reduce (fully fused),
   * gradients — one ``scatter-add`` of ``values * residual`` into the
     ``[n_features]`` (or ``[n_features, n_classes]``) gradient buffer;
-    XLA lowers batched scatter-adds natively on TPU,
+    XLA lowers batched scatter-adds natively,
   * Hessian-vector products — a second gather of ``v`` plus the same
     scatter shape.
 

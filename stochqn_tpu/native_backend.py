@@ -44,8 +44,7 @@ def _build_library() -> str:
     src = os.path.join(_NATIVE_DIR, "src", "capi.cpp")
     inc = os.path.join(_NATIVE_DIR, "include")
     # Build to a private temp file and atomically rename: another process
-    # (the one-at-a-time TPU workflow still allows concurrent CPU runs)
-    # must never dlopen a partially written .so.
+    # (parallel test workers) must never dlopen a partially written .so.
     tmp_path = f"{_LIB_PATH}.tmp.{os.getpid()}"
     cmd = ["g++", *NUMERIC_FLAGS, "-std=c++17", "-shared", "-fPIC",
            f"-I{inc}", src, "-o", tmp_path]
@@ -178,9 +177,8 @@ class _NativeBase:
         self._niter = ctypes.c_long(0)
         # Everything a run() call needs, bound ONCE: at small n the
         # optimizer math is microseconds, so per-call Python work
-        # (getattr, f-strings, pointer/byref construction) is a measured
-        # slice of the digits-config gap vs the reference C core
-        # (BENCH_NOTES small-n table).  Buffers never reallocate after
+        # (getattr, f-strings, pointer/byref construction) is a visible
+        # share of a call.  Buffers never reallocate after
         # start(), so the cached pointers stay valid.
         self._run_fn = self._fn("run")
         self._out_refs = (ctypes.byref(self._info),

@@ -31,19 +31,10 @@ def _gram_cols(buf, row_s, row_y, acc_t):
     """The incremental-Gram pass ``buf @ [row_s; row_y]^T`` as TWO
     ``[.., n] @ [n]`` matvecs stacked small, NOT one ``[n, 2]`` matmul.
 
-    A 2-column RHS/output gets the T(2,128) minor-dim tile (2/8
-    sublanes) and the single pass over the pair buffer runs at ~1/4
-    bandwidth — the same hardware lesson as the rejected ``[m, 2, n]``
-    pair layout.  Measured by single-process interleaved A/Bs (the only
-    instrument that resolves this against session drift): flagship SQN
-    0.975x whole-step time (5/5 pairs, ~27 us/boundary;
-    ``benchmarks/gram_pass_ab.py``); production oLBFGS **0.896x** for
-    bf16+interleaved (5/5 pairs, 113.4 -> 101.6 us/step;
-    ``benchmarks/olbfgs_gram_ab.py``) — and two independent sweeps
-    corroborate +9%/+59% for f32 block/shift.  A sequential sweep pair
-    initially suggested a bf16 regression; the interleaved A/B shows
-    that was inter-session variance (the cell swings 8.9-10.4k
-    iters/s across sessions)."""
+    The two-matvec form won on the earlier accelerator (PERF.md), where a
+    2-column operand got a narrow memory tile; it has not been measured
+    on the H100 (``benchmarks/gram_pass_ab.py`` and
+    ``benchmarks/olbfgs_gram_ab.py`` compare the two)."""
     return jnp.stack([_mem_mm(buf, row_s, acc_t),
                       _mem_mm(buf, row_y, acc_t)], axis=1)
 
@@ -121,11 +112,11 @@ def commit_pair(mem: BFGSMemory, y_cand: jax.Array, min_curvature: float,
     # reject (an idempotent rewrite — O(n), not O(m n)).
     if interleaved and not mem.shift:
         # Capacity-mode commit (static fallback above
-        # ``state.SHIFT_MAX_BYTES``): the round-4 rotating ring with a
+        # ``state.SHIFT_MAX_BYTES``): the rotating ring with a
         # single contiguous [2, n] dynamic-update-slice.  Slower in a
         # scan carry (XLA copies the buffer first) but its peak footprint
-        # is 1x the pair memory where the shift rewrite needs 2x — this
-        # is the branch that carries the n=128M single-chip claim.
+        # is 1x the pair memory where the shift rewrite needs 2x — the
+        # branch for pair memories near the card's capacity.
         st_t = mem.sy.dtype
         cur = jax.lax.dynamic_slice_in_dim(mem.sy, 2 * mem.head, 2,
                                            axis=0)              # [2, n]
@@ -142,17 +133,16 @@ def commit_pair(mem: BFGSMemory, y_cand: jax.Array, min_curvature: float,
         buf_updates = dict(sy=new_sy)
     elif interleaved:
         st_t = mem.sy.dtype  # may be a narrower storage dtype (pairs_bf16)
-        # SHIFT ring (round 5): the newest pair lives at rows 0-1 and a
+        # SHIFT ring: the newest pair lives at rows 0-1 and a
         # commit REBUILDS the buffer as one fused sequential pass
         # (select(accepted, [slab; sy[:-2]], sy)) instead of a
         # dynamic-update-slice into the ring slot.  Rationale: a DUS into
         # a ``lax.scan`` carry makes XLA copy the whole [2m, n] buffer
-        # before writing the slab (measured 55 us/step at the flagship
-        # shape vs 36.5 us for the shift rewrite —
-        # ``benchmarks/olbfgs_op_budget.py --bf16-interleaved``, variants
-        # slab_only vs slab_shift), and oLBFGS pays a commit EVERY
-        # iteration.  ``head`` stays 0: chronology is positional (newest
-        # first — see ``_small_cache``'s interleaved perm).
+        # before writing the slab (``benchmarks/olbfgs_op_budget.py
+        # --bf16-interleaved`` compares slab_only and slab_shift), and
+        # oLBFGS pays a commit EVERY iteration.  ``head`` stays 0:
+        # chronology is positional (newest first — see
+        # ``_small_cache``'s interleaved perm).
         slab = jnp.stack([s.astype(st_t), y_cand.astype(st_t)])
         shifted = jnp.concatenate([slab, mem.sy[:-2]], axis=0)
         new_sy = jnp.where(accepted, shifted, mem.sy)
@@ -341,7 +331,7 @@ def fisher_y(fisher: FisherMemory, s: jax.Array) -> jax.Array:
     (``update_y_fisher``, ``src/stochqn.c:936-952``).
 
     Two ``[k, n]`` matvecs; under a sharded ``n`` axis the inner ``F s``
-    product is one ``psum`` of a length-``k`` vector over ICI.
+    product is one ``psum`` of a length-``k`` vector.
     """
     acc_t = jnp.promote_types(s.dtype, jnp.float32)
     fs = _mem_mm(fisher.f, s, acc_t)                              # [k]

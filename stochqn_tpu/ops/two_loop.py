@@ -1,4 +1,4 @@
-"""L-BFGS two-loop recursion, re-derived for TPU.
+"""L-BFGS two-loop recursion, re-derived for an accelerator.
 
 The reference implements the classic sequential two-loop recursion
 (``approx_inv_hess_grad``, ``src/stochqn.c:663-708``): for ``m`` stored
@@ -17,10 +17,10 @@ Here the recursion is algebraically collapsed into its *compact form*:
 
 so the only O(n) work is three batched matmuls — ``W g``, ``W W^T`` and
 ``W^T u`` with ``W = [S; Y]`` of shape ``[2m, n]`` — plus an ``O(m^2)``
-pair of triangular solves.  On TPU this is 3 streaming passes over the pair
-memory instead of ~4m, all MXU-shaped, and under a sharded ``n`` axis it
-needs exactly one fused ``psum`` of ``2m + 4m^2`` scalars instead of ``4m``
-sequential ones.  The math is exactly equivalent (associativity of the dot
+pair of triangular solves.  On a GPU this is 3 streaming passes over the
+pair memory instead of ~4m, all matrix-shaped, and under a sharded ``n``
+axis it needs exactly one fused ``psum`` of ``2m + 4m^2`` scalars instead
+of ``4m`` sequential ones.  The math is exactly equivalent (associativity of the dot
 products aside).
 
 A faithful sequential variant (`two_loop_sequential`) is kept for
@@ -47,25 +47,26 @@ import jax
 import jax.numpy as jnp
 from jax.scipy.linalg import solve_triangular
 
-# TPU matmuls default to bfloat16 input rounding; the quasi-Newton small
-# quantities (rho, Gram, triangular systems) need true float32, and the
-# cost is irrelevant (these ops are bandwidth-, not FLOP-, bound).
+# On the H100 a float32 matmul at default precision runs in TF32 (about
+# three decimal digits); the quasi-Newton small quantities (rho, Gram,
+# triangular systems) and the pair-memory products need true float32, so
+# HIGHEST switches TF32 off for them.  The passes are bandwidth-, not
+# FLOP-, bound.
 PRECISION = jax.lax.Precision.HIGHEST
 
 
 def _mem_mm(a, b, acc_t):
     """Streaming matmul against the pair/Fisher memory, storage-aware.
 
-    float32 storage: ``Precision.HIGHEST`` — measured free (the passes are
-    bandwidth-bound; BENCH_NOTES kernel study, finding 5).
+    float32 storage: ``Precision.HIGHEST`` (the passes are
+    bandwidth-bound, so full float32 costs no time).
 
-    bfloat16 storage: upcast *inside* the matmul and use default precision.
-    A mixed-dtype (or HIGHEST) matmul here makes XLA materialize a float32
-    copy of the ``[2m, n]`` buffer in HBM, forfeiting ~half the bandwidth
-    the bf16 storage bought — measured 3,588 -> 2,400 us (1.5x) on the
-    collapsed direction at n=16M (BENCH_NOTES bf16-forms study).  The MXU
-    pass rounds the non-storage operand to bf16 (standard mixed-precision
-    semantics; accumulation stays ``acc_t``).
+    bfloat16 storage: upcast *inside* the matmul and use default precision
+    (on the H100 that rounds the float32 operands to TF32; accumulation
+    stays ``acc_t``).  The upcast was meant to let XLA fuse the convert
+    into the matvec instead of materializing a float32 copy of the
+    ``[2m, n]`` buffer; on the H100 the bf16 step at n=16M is slower than
+    the float32 one (PERF.md), so that fusion is in question.
     """
     if a.dtype == jnp.bfloat16 or b.dtype == jnp.bfloat16:
         return jnp.matmul(a.astype(acc_t), b.astype(acc_t),
@@ -90,8 +91,6 @@ def two_loop(
     h0: float = 0.0,
     diag: Optional[jax.Array] = None,
     gram: Optional[jax.Array] = None,
-    use_pallas: bool = False,
-    pallas_interpret: bool = False,
 ) -> jax.Array:
     """Approximate ``H^{-1} grad`` from the stored correction pairs.
 
@@ -110,12 +109,6 @@ def two_loop(
         order (see :class:`stochqn_tpu.core.state.BFGSMemory`); when given,
         the per-step Gram matmul is skipped — one fewer streaming pass over
         the pair memory.
-      use_pallas: fuse the projection phase into a single Pallas kernel
-        pass (``ops/pallas/two_loop_kernel``): ``W g + W W^T`` when the
-        Gram isn't cached, or ``W g + (Y*diag) g + (Y*diag) Y^T`` for the
-        adaQN diagonal path.  float32 only; silently falls back to the XLA
-        path otherwise.
-      pallas_interpret: run the kernels in interpreter mode (CPU tests).
 
     Returns:
       ``[n]`` search direction ``d ~= H^{-1} g`` (positive direction; the
@@ -132,37 +125,12 @@ def two_loop(
     valid = (cidx < count)
     validf = valid.astype(acc_t)
 
-    pallas_ok = (use_pallas and dtype == jnp.float32
-                 and s_mem.dtype == jnp.float32)
-    yd_g_st = ydy_st = None
-    if pallas_ok:
-        from stochqn_tpu.ops.pallas import two_loop_kernel as tlk
-        if diag is not None:
-            wg, yd_g_st, ydy_st = tlk.project_adaqn(
-                s_mem, y_mem, diag, grad, interpret=pallas_interpret)
-            wg = wg.astype(acc_t)
-            if gram is None:
-                w = jnp.concatenate([s_mem, y_mem], axis=0)
-                gram = jnp.matmul(w, w.T, preferred_element_type=acc_t,
-                    precision=PRECISION)
-            else:
-                gram = gram.astype(acc_t)
-        elif gram is None:
-            wg, gram = tlk.project(s_mem, y_mem, grad,
-                                   interpret=pallas_interpret)
-            wg = wg.astype(acc_t)
-            gram = gram.astype(acc_t)
-        else:
-            w = jnp.concatenate([s_mem, y_mem], axis=0)
-            wg = _mem_mm(w, grad, acc_t)
-            gram = gram.astype(acc_t)
+    w = jnp.concatenate([s_mem, y_mem], axis=0)                # [2m, n]
+    wg = _mem_mm(w, grad, acc_t)                               # [2m]
+    if gram is None:
+        gram = _mem_mm(w, w.T, acc_t)
     else:
-        w = jnp.concatenate([s_mem, y_mem], axis=0)            # [2m, n]
-        wg = _mem_mm(w, grad, acc_t)                           # [2m]
-        if gram is None:
-            gram = _mem_mm(w, w.T, acc_t)
-        else:
-            gram = gram.astype(acc_t)
+        gram = gram.astype(acc_t)
 
     # Chronologically ordered small quantities.
     sg = wg[:m][perm]
@@ -198,10 +166,9 @@ def two_loop(
         y_r0 = gamma * (yg - jnp.matmul(yy, alpha, preferred_element_type=acc_t,
                     precision=PRECISION))
     else:
-        if yd_g_st is None:
-            yd = y_mem.astype(acc_t) * diag[None, :].astype(acc_t)
-            yd_g_st = _mem_mm(yd, grad, acc_t)
-            ydy_st = _mem_mm(yd, y_mem.T, acc_t)
+        yd = y_mem.astype(acc_t) * diag[None, :].astype(acc_t)
+        yd_g_st = _mem_mm(yd, grad, acc_t)
+        ydy_st = _mem_mm(yd, y_mem.T, acc_t)
         yd_g = yd_g_st.astype(acc_t)[perm]
         ydy = ydy_st.astype(acc_t)[perm][:, perm]
         y_r0 = yd_g - jnp.matmul(ydy, alpha, preferred_element_type=acc_t,
@@ -244,8 +211,6 @@ def two_loop_cached(
     *,
     h0: float = 0.0,
     diag: Optional[jax.Array] = None,
-    use_pallas: Optional[bool] = None,
-    pallas_interpret: bool = False,
     collapsed: bool = False,
     coupling: str = "matvec",
 ) -> jax.Array:
@@ -260,16 +225,15 @@ def two_loop_cached(
         small    three m-sized matvecs      (alpha, y_r0, beta)
         expand   ``gamma g + W^T u``        (one [2m, n] pass)
 
-    which minimizes the per-step op count — the dominant cost inside a
-    ``lax.scan`` on TPU, where tiny sequential ops, not FLOPs, set the
-    pace.  This is the production path used by the state machines and the
-    fused engine.
+    which minimizes the per-step op count — inside a ``lax.scan`` every
+    small sequential op is one more kernel launch.  This is the production
+    path used by the state machines and the fused engine.
 
     ``coupling`` selects the diagonal-H0 (adaQN) coupling formulation:
 
       * ``"matvec"`` (default) — ``Y @ (D (g - Y^T alpha))``: pure
-        matvecs, no ``[m, n]`` intermediate, fastest on a single chip at
-        every measured size (BENCH_NOTES.md).
+        matvecs, no ``[m, n]`` intermediate, the fewest bytes on one
+        device.
       * ``"gram"`` — the ``(Y*D) g`` / ``(Y*D) Y^T`` products: more HBM
         traffic, but every n-contraction is available simultaneously, so
         a param-sharded ``n`` axis needs ONE fused psum per step where
@@ -307,8 +271,8 @@ def two_loop_cached(
         #   d = gamma*g + W^T ((c0 + gamma*cg) @ (W g)),  W = [s; y]
         # with (c0, cg) precomputed at commit time
         # (pairs._small_cache(direction_cache=True)).  Two [2m, n] passes
-        # plus TWO tiny matvecs — the fewest sequential ops per step, which
-        # is what sets the pace inside lax.scan on TPU.  Requires callers
+        # plus TWO tiny matvecs — the fewest sequential ops per step inside
+        # lax.scan.  Requires callers
         # to have committed with direction_cache=True.
         if h0 > 0:
             gamma = jnp.asarray(h0, acc_t)
@@ -329,26 +293,8 @@ def two_loop_cached(
         # stale collapsed cache (mirrors the classic path's `empty` select).
         return jnp.where(has_pairs, d, g_acc).astype(dtype)
 
-    ydg_st = ydy_st = None
-    if use_pallas is None:
-        # auto: OFF.  The kernel's one-pass fusion beat the *old* XLA
-        # formulation past n ~ 12M, but the matvec form below
-        # (``Y @ (D (g - Y^T alpha))`` — no ``Y*D`` intermediate, no
-        # weighted Gram) beats the kernel at every measured size
-        # (16M: 12.7 vs 14.3 ms/iter engine-level — BENCH_NOTES.md), so
-        # the auto default no longer enables it.  ``use_pallas=True``
-        # still forces the kernel (which then uses the ydg/ydy coupling).
-        use_pallas = False
-    pallas_ok = (use_pallas and not interleaved and dtype == jnp.float32
-                 and s_mem.dtype == jnp.float32)
-    if pallas_ok and diag is not None:
-        from stochqn_tpu.ops.pallas import two_loop_kernel as tlk
-        wg, ydg_st, ydy_st = tlk.project_adaqn(
-            s_mem, y_mem, diag, grad, interpret=pallas_interpret)
-        wg = wg.astype(acc_t)
-    else:
-        w = w_int if interleaved else jnp.concatenate([s_mem, y_mem], axis=0)
-        wg = _mem_mm(w, grad, acc_t)
+    w = w_int if interleaved else jnp.concatenate([s_mem, y_mem], axis=0)
+    wg = _mem_mm(w, grad, acc_t)
 
     if interleaved:
         sg = wg[0::2][perm]
@@ -372,14 +318,12 @@ def two_loop_cached(
         y_r0 = gamma * (yg - jnp.matmul(mem.yy_c, alpha,
                                         preferred_element_type=acc_t,
                     precision=PRECISION))
-    elif ydg_st is not None or coupling == "gram":
-        if ydg_st is None:
-            # gram coupling in XLA: both n-contractions are independent of
-            # alpha, so under a sharded n axis they ride one fused psum
-            yd = y_mem.astype(acc_t) * diag[None, :].astype(acc_t)
-            ydg_st = _mem_mm(yd, grad, acc_t)
-            ydy_st = _mem_mm(yd, y_mem.T, acc_t)
-        # (else: the Pallas projection kernel supplied them directly)
+    elif coupling == "gram":
+        # both n-contractions are independent of alpha, so under a
+        # sharded n axis they ride one fused psum
+        yd = y_mem.astype(acc_t) * diag[None, :].astype(acc_t)
+        ydg_st = _mem_mm(yd, grad, acc_t)
+        ydy_st = _mem_mm(yd, y_mem.T, acc_t)
         ydg = ydg_st.astype(acc_t)[perm]
         ydy = ydy_st.astype(acc_t)[perm][:, perm]
         y_r0 = ydg - jnp.matmul(ydy, alpha, preferred_element_type=acc_t,

@@ -1,10 +1,12 @@
 """Multi-host initialization and mesh construction.
 
 The reference is single-process (its only parallelism is OpenMP threads).
-Scaling here is mesh-native: on a multi-host TPU pod slice, call
-:func:`initialize` once per process, then build a global mesh spanning all
-hosts.  All collectives ride XLA (psum over ICI within a slice, DCN across
-slices) — no custom transport, mirroring the SURVEY §2 mapping.
+Scaling here is mesh-native: on several hosts (or several processes on
+one), call :func:`initialize` once per process, then build a global mesh
+spanning all of them.  All collectives ride XLA (NCCL over NVLink between
+the GPUs of a host, the network between hosts, Gloo between CPU
+processes) — no custom transport, mirroring the SURVEY §2 mapping.  One
+process drives all the GPUs of one host without this module.
 """
 from __future__ import annotations
 
@@ -20,14 +22,16 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Initialize the JAX distributed runtime (no-op on single process).
 
-    On Cloud TPU the arguments are auto-detected; elsewhere pass the
-    coordinator explicitly.  Must be called before any jax operation.
+    Where a cluster manager describes the job, JAX may detect the
+    arguments; elsewhere pass the coordinator (``localhost:<port>`` on one
+    machine), the process count and this process's id.  Must be called
+    before any jax operation.
     """
     if num_processes is not None and num_processes <= 1:
         return
     if (num_processes is None and coordinator_address is None
             and process_id is None):
-        # default call: auto-detect a managed cluster (Cloud TPU/GKE);
+        # default call: auto-detect a managed cluster (e.g. SLURM);
         # genuinely single-process environments are a no-op
         try:
             jax.distributed.initialize()

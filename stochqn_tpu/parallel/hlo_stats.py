@@ -5,13 +5,13 @@ inserts every collective, this module makes the inserted communication
 *auditable*: parse a compiled module's HLO text and report each
 collective's payload bytes and group size.  Used by the parallelism tests
 (``tests/test_parallel.py``) to lock per-step collective BYTE budgets —
-not just op counts — and by ``benchmarks/collective_bytes.py`` to feed the
-ICI roofline model in BENCH_NOTES.md / SCALING.json.
+not just op counts.
 
 Byte counts are the payload of the collective's result shape.  For an
-all-reduce of payload ``B`` over a ring of ``g`` devices, the per-chip
-ICI traffic is ``2 B (g-1)/g`` (reduce-scatter + all-gather phases), which
-the roofline model applies on top of these raw payloads.
+all-reduce of payload ``B`` over a ring of ``g`` devices, the per-device
+link traffic is ``2 B (g-1)/g`` (reduce-scatter + all-gather phases),
+which a roofline of the interconnect applies on top of these raw
+payloads.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ _COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter",
                 "all-to-all", "collective-permute")
 
 # `%name = <shape> all-reduce(...)` — the shape region is everything
-# between `=` and the op keyword (non-greedy), so tuple shapes whose TPU
+# between `=` and the op keyword (non-greedy), so tuple shapes whose
 # tiled layouts contain parentheses (`(f32[512]{0:T(512)}, ...)`) are
 # captured whole.  `-start` variants are the async forms; their `-done`
 # halves carry no new payload.

@@ -8,7 +8,7 @@ mesh:
 
   * ``data`` axis: minibatches / big-batch correction sets are sharded by
     example; gradients, empirical-Fisher terms and function values reduce
-    with one ``psum`` over ICI.
+    with one ``psum`` (NCCL over NVLink between the GPUs of a host).
   * ``param`` axis: for very large ``n``, the iterate and the ``[m, n]``
     pair/Fisher memories shard along ``n``; the compact two-loop then needs
     exactly one fused ``psum`` of ``O(m^2)`` scalars per step (see

@@ -7,11 +7,8 @@ checkpoint-friendly (all state in language-side holders,
 — including the ``section`` coroutine resume point — so a snapshot restores
 mid-protocol exactly.
 
-Two formats:
-  * :func:`save_state` / :func:`load_state` — dependency-free ``.npz``
-    (leaves keyed by tree path), portable and human-inspectable.
-  * :func:`save_orbax` / :func:`load_orbax` — orbax-checkpoint, for
-    multi-host / async checkpointing of sharded states.
+:func:`save_state` / :func:`load_state` write and read a dependency-free
+``.npz`` (leaves keyed by tree path), portable and human-inspectable.
 """
 from __future__ import annotations
 
@@ -65,14 +62,3 @@ def load_state(path: str, template):
                            getattr(leaf, "sharding", None)))
     return jax.tree_util.tree_unflatten(treedef, new_leaves)
 
-
-def save_orbax(path: str, state) -> None:
-    import orbax.checkpoint as ocp
-    with ocp.StandardCheckpointer() as ckptr:
-        ckptr.save(path, state, force=True)
-
-
-def load_orbax(path: str, template):
-    import orbax.checkpoint as ocp
-    with ocp.StandardCheckpointer() as ckptr:
-        return ckptr.restore(path, template)

@@ -1,9 +1,9 @@
 """Streaming ingestion: host -> device pipeline for fused training.
 
 The reference streams data through ``partial_fit`` with a host-side
-stored-batch container (``stochqn/_optimizers.py:288-337``).  The TPU
-analogue: minibatches arrive from any host iterator, are asynchronously
-staged to device memory ahead of use (double/triple buffering over the
+stored-batch container (``stochqn/_optimizers.py:288-337``).  The
+on-device analogue: minibatches arrive from any host iterator, are
+asynchronously staged to device memory ahead of use (double/triple buffering over the
 dispatch queue), grouped into ``upd_freq``-sized rounds, and consumed by
 the jitted :meth:`FusedTrainer.round` program — the round's batches are
 exactly the big-batch correction set, mirroring the reference's "all

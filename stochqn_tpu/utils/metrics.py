@@ -10,6 +10,7 @@ for TensorBoard-compatible device traces.
 from __future__ import annotations
 
 import contextlib
+import subprocess
 from collections import Counter
 from typing import Dict
 
@@ -47,6 +48,17 @@ def trace(log_dir: str):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def gpu_name_and_power_limit() -> str:
+    """``nvidia-smi``'s ``name, power.limit`` line for each card, to be
+    printed beside every number measured on it (a card set below its
+    maximum power runs slower under load)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip()
 
 
 class LossHistory:

@@ -4,7 +4,7 @@ The virtual 8-device mesh used everywhere else runs in one process; these
 tests spawn two real worker processes (4 virtual CPU devices each) that
 form one jax.distributed cluster over a localhost Gloo coordinator — the
 same code path (initialize / global mesh / process-local ingestion /
-cross-host collectives) a real multi-host TPU pod uses, per SURVEY §2's
+cross-host collectives) a real multi-host GPU cluster uses, per SURVEY §2's
 "distributed comm backend" row.
 
 The matrix covers all three optimizers x both mesh layouts:

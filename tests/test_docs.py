@@ -18,38 +18,6 @@ def test_api_reference_is_current():
         "`python docs/gen_api_docs.py`")
 
 
-def test_scaling_json_sections():
-    """Every SCALING.json section cited by CLAUDE.md / BENCH_NOTES.md /
-    docs/design.md must exist at HEAD.  Round 3 regressed this: a re-run of
-    benchmarks/scaling.py overwrote the whole file and silently dropped the
-    ici_roofline + multiprocess sections the docs cite as the weak-scaling
-    evidence (VERDICT r3 weak #1).  scaling.py now merges; this locks it."""
-    import json
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with open(os.path.join(repo, "SCALING.json")) as f:
-        scaling = json.load(f)
-    cited = {
-        "data_parallel_weak_scaling",
-        "param_sharded_weak_scaling_250k_per_dev",
-        "multiprocess_weak_scaling",
-        "multiprocess_weak_scaling_compute_dominated",
-        "ici_roofline",
-        "overlap_ablation",
-    }
-    missing = cited - set(scaling)
-    assert not missing, (
-        f"SCALING.json lost cited sections {sorted(missing)} — a benchmark "
-        "script overwrote instead of merging (see benchmarks/scaling.py)")
-    roof = scaling["ici_roofline"]
-    assert {"collective_bytes_flagship", "measured_step_time_us",
-            "dp_efficiency_model"} <= set(roof)
-    # round-4 measured-overlap evidence (benchmarks/overlap_ablation.py)
-    ov = scaling["overlap_ablation"]
-    for depth_key in ("depth_36", "depth_144"):
-        assert {"pairs", "exposed_collective_us_median",
-                "weak_scaling_eff_median"} <= set(ov[depth_key])
-
-
 def test_html_docs_build(tmp_path):
     """`python docs/build_html.py` produces the browsable site (the
     counterpart of the reference's Sphinx build) with every page

@@ -160,7 +160,7 @@ def test_knob_reaches_guided_and_free(rng):
                   use_grad_diff=True, pairs_interleaved=True, verbose=False)
     assert s.optimizer._cfg.pairs_interleaved
 
-    # native backend: TPU-path extras must be rejected, not ignored
+    # native backend: JAX-engine options must be rejected, not ignored
     with pytest.raises(ValueError, match="backend"):
         oLBFGS_free(backend="native", pairs_interleaved=True)
 

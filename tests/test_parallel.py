@@ -180,7 +180,7 @@ def test_param_sharded_adaqn_coupling_psum_counts(rng):
 
 
 # ===========================================================================
-# Per-step collective BYTE budgets (the quantity the ICI roofline needs)
+# Per-step collective BYTE budgets (what an interconnect roofline needs)
 # ===========================================================================
 # Each test compiles a loop-free per-step (or per-boundary) program under
 # one of the dryrun topologies and asserts the total collective payload —
@@ -331,7 +331,7 @@ def test_collective_bytes_olbfgs_step_mixed_mesh(rng):
 
 
 def test_hlo_stats_parses_tpu_async_and_tiled_forms():
-    """TPU compiles emit async `-start` ops whose result tuple is
+    """Accelerator compiles emit async `-start` ops whose result tuple is
     (operand, result[, scratch]) — summing would double-count — and
     tiled layouts with parentheses inside the shape (`{0:T(512)}`) that
     must not truncate the tuple parse."""

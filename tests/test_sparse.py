@@ -4,7 +4,7 @@ conversion round-trips, and end-to-end fused training on CTR-shaped data.
 The reference's sparse surface: CSR input accepted by the logistic model
 (``stochqn/_logistic.py:36-247``) and sparse vstack in the guided driver
 (``stochqn/_optimizers.py:81-112``).  Here sparsity is a first-class batch
-format for the TPU engines instead of a host-side densify."""
+format for the JAX engines instead of a host-side densify."""
 import jax
 import jax.numpy as jnp
 import numpy as np
